@@ -3,11 +3,13 @@
 
 The TPU plan keeps the full height of a ``bx``-column strip resident in
 VMEM and pads to (8, 128) tiles. A Hopper thread block (CTA) has at most
-227 KB of shared memory, so the plan here blocks a second axis: a CTA
-owns a band of ``by`` output rows and walks the ``bx``-wide x-tiles of
-that band in order (the revolving kernel, ``kernels/csrc/``). ``bt``
-fused steps grow the halo to ``halo = bt * r`` on both axes. There is
-no lane or sublane rule.
+227 KB of shared memory, so the plan here blocks a second axis. In 2D a
+CTA owns a band of ``by`` output rows and walks the ``bx``-wide x-tiles
+of that band in order (the revolving kernel); in 3D a CTA owns a
+``by x bx`` tile of the (y, x) plane and streams z through it (the 3D
+streaming kernel; both in ``kernels/csrc/``). ``bt`` fused steps grow
+the halo to ``halo = bt * r`` on x and y. There is no lane or sublane
+rule.
 
 The bookkeeping keeps ``repro``'s meaning: redundancy (now over two
 axes), HBM bytes per sweep (each input read once, the output written
@@ -29,13 +31,13 @@ BAND_CHOICES = (64, 32, 16, 8)
 
 @dataclasses.dataclass(frozen=True)
 class BlockPlan:
-    """A resolved blocking configuration for one 2D sweep on Hopper."""
+    """A resolved blocking configuration for one sweep on Hopper."""
 
     spec: StencilSpec
     grid_shape: Tuple[int, ...]   # (H, W) for 2D; (D, H, W) for 3D
     bx: int                       # x-tile width (last axis)
     bt: int                       # fused time steps
-    by: int = 32                  # output rows per CTA band
+    by: int = 32                  # output rows per CTA (band or tile)
     itemsize: int = 4
 
     def __post_init__(self):
@@ -101,17 +103,26 @@ class BlockPlan:
         return self.cells * self.itemsize * (2.0 + self.n_aux)
 
     def smem_bytes(self, n_streams: int | None = None) -> int:
-        """Dynamic shared memory of one CTA of the revolving kernel: a
-        ring of three ``bx``-wide tiles of ``by + 2*halo`` rows per
-        streamed operand, plus two ping-pong step windows."""
-        if self.spec.dims != 2:
-            raise NotImplementedError(
-                "the 3D plan's shared-memory layout comes with the 3D "
-                "streaming kernel (ROADMAP queue 1, 3D + K3 + Hotspot3D)")
+        """Dynamic shared memory of one CTA.
+
+        2D (revolving kernel): a ring of three ``bx``-wide tiles of
+        ``by + 2*halo`` rows per streamed operand, plus two ping-pong
+        step windows. 3D (streaming kernel): ``bt`` stage rings of
+        ``2r + 1`` planes, plus a ring of ``halo + 1`` source planes
+        when a source streams beside the grid (``n_streams > 1``); each
+        plane is the ``(by + 2*halo) x (bx + 2*halo)`` window. The last
+        stage writes its block straight to HBM, so there is no output
+        plane.
+        """
         n_streams = 1 + self.n_aux if n_streams is None else n_streams
+        plane = self.window_rows * self.window_width
+        if self.spec.dims == 3:
+            planes = self.bt * (2 * self.spec.radius + 1)
+            if n_streams > 1:
+                planes += self.halo + 1
+            return planes * plane * self.itemsize
         ring = 3 * self.bx * self.window_rows
-        windows = 2 * self.window_rows * self.window_width
-        return (n_streams * ring + windows) * self.itemsize
+        return (n_streams * ring + 2 * plane) * self.itemsize
 
     def sweeps(self, n_steps: int) -> int:
         """Grid passes needed for ``n_steps`` total time steps."""
@@ -121,9 +132,9 @@ class BlockPlan:
 def plan_2d(spec: StencilSpec, grid_shape: Tuple[int, ...], *, bx: int,
             bt: int, by: int | None = None, n_streams: int = 1,
             itemsize: int = 4) -> BlockPlan:
-    """The 2D plan for (bx, bt): ``by`` as given, else the largest band
-    of ``BAND_CHOICES`` whose CTA fits ``SMEM_LIMIT``. Raises when no
-    band fits."""
+    """The plan for (bx, bt): ``by`` as given, else the largest band of
+    ``BAND_CHOICES`` whose CTA fits ``SMEM_LIMIT``. Raises when no band
+    fits. It serves 2D and 3D specs alike (``plan_3d``)."""
     for b in ((by,) if by is not None else BAND_CHOICES):
         plan = BlockPlan(spec, tuple(grid_shape), bx=bx, bt=bt, by=b,
                          itemsize=itemsize)
@@ -133,6 +144,17 @@ def plan_2d(spec: StencilSpec, grid_shape: Tuple[int, ...], *, bx: int,
         f"no row band fits one CTA's {SMEM_LIMIT} bytes of shared memory "
         f"at bx={bx}, bt={bt} (halo {plan.halo}, {n_streams} streams; "
         f"by={plan.by} needs {plan.smem_bytes(n_streams)}); lower bx or bt")
+
+
+def plan_3d(spec: StencilSpec, grid_shape: Tuple[int, ...], *, bx: int,
+            bt: int, by: int | None = None, n_streams: int = 1,
+            itemsize: int = 4) -> BlockPlan:
+    """The 3D plan for (bx, bt): the CTA's ``by x bx`` tile of the
+    (y, x) plane, ``by`` chosen as ``plan_2d`` chooses its band."""
+    if spec.dims != 3:
+        raise ValueError("plan_3d needs a 3D spec")
+    return plan_2d(spec, grid_shape, bx=bx, bt=bt, by=by,
+                   n_streams=n_streams, itemsize=itemsize)
 
 
 def incore_resident_bytes(spec: StencilSpec, grid_shape: Tuple[int, ...],

@@ -25,12 +25,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> (source file, C signature of the entry point of the same name)
+_IP = ctypes.POINTER(_I)
+_FP = ctypes.POINTER(ctypes.c_float)
+# name -> (source file, C signature of the entry point of the same name):
+# the grid, source and output pointers, the int geometry, the tap offsets
+# and weights, the stream.
 KERNELS = {
     "stencil2d_revolving": (
         "stencil2d_revolving.cu",
-        [_P, _P, _P] + [_I] * 10 + [ctypes.POINTER(_I), ctypes.POINTER(_I),
-                                    ctypes.POINTER(ctypes.c_float), _P]),
+        [_P, _P, _P] + [_I] * 10 + [_IP, _IP, _FP, _P]),
+    "stencil3d_stream": (
+        "stencil3d_stream.cu",
+        [_P, _P, _P] + [_I] * 11 + [_IP, _IP, _IP, _FP, _P]),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -23,6 +23,7 @@ from repro_torch.core.stencil import StencilSpec
 from repro_torch.kernels import engine as _engine
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.stencil2d import stencil2d as _stencil2d
+from repro_torch.kernels.stencil3d import stencil3d as _stencil3d
 
 BACKENDS = ("auto", "reference")
 
@@ -106,14 +107,11 @@ def _sweep(x, spec, bx, bt, backend, variant, source, aux, scalars):
     if backend == "reference":
         return _ref.stencil_multistep(x, spec, bt, source, aux=aux,
                                       scalars=scalars)
-    if spec.dims != 2:
-        raise NotImplementedError(
-            "3D grids come with the 3D streaming kernel K3 (ROADMAP queue "
-            "1, 3D + K3 + Hotspot3D)")
+    fn = _stencil2d if spec.dims == 2 else _stencil3d
     _count_dispatch()
-    return _stencil2d(x, spec, bx=bx, bt=bt,
-                      variant=variant if variant is not None else "revolving",
-                      source=source, aux=aux, scalars=scalars)
+    return fn(x, spec, bx=bx, bt=bt,
+              variant=variant if variant is not None else "revolving",
+              source=source, aux=aux, scalars=scalars)
 
 
 def stencil_run(x: torch.Tensor, spec: StencilSpec, n_steps: int,

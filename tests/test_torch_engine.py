@@ -203,12 +203,21 @@ def test_card_route_raises_not_implemented(case, monkeypatch):
     assert t_engine.stencil2d_revolving.launches == launches
 
 
-def test_3d_raises_not_implemented_everywhere():
-    x = torch.zeros(5, 6, 7)
-    with pytest.raises(NotImplementedError, match="K3"):
-        t_engine.stencil_call(x, ts.diffusion(3, 1), bx=128, bt=1)
-    with pytest.raises(NotImplementedError, match="K3"):
-        ops.stencil_sweep(x, ts.diffusion(3, 1), bx=128, bt=1)
+def test_3d_raises_not_implemented_everywhere(monkeypatch):
+    """3D grids run now; a [B, D, H, W] batch of them is what still
+    raises, on the CPU and on the card route alike, before any launch."""
+    x = torch.zeros(2, 5, 6, 7)
+    spec = ts.diffusion(3, 1)
+    with pytest.raises(NotImplementedError, match="batch axis"):
+        t_engine.stencil_call(x, spec, bx=128, bt=1)
+    with pytest.raises(NotImplementedError, match="batch axis"):
+        ops.stencil_sweep(x, spec, bx=128, bt=1)
+    assert t_engine.stencil_call(x[0], spec, bx=128, bt=1).shape == (5, 6, 7)
+    monkeypatch.setattr(t_engine, "on_card", lambda t: True)
+    launches = t_engine.stencil3d_stream.launches
+    with pytest.raises(NotImplementedError, match="batch axis"):
+        t_engine.stencil_call(x, spec, bx=128, bt=1)
+    assert t_engine.stencil3d_stream.launches == launches
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -279,9 +288,10 @@ def test_block_plan_smem_and_band_choice():
     assert bigger.smem_bytes() > t_blocking.SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         t_blocking.plan_2d(spec, (64, 4096), bx=2048, bt=1)
-    with pytest.raises(NotImplementedError):
-        t_blocking.BlockPlan(ts.diffusion(3, 1), (4, 8, 8), bx=8,
-                             bt=1).smem_bytes()
+    plan3 = t_blocking.BlockPlan(ts.diffusion(3, 1), (4, 8, 8), bx=8, bt=1,
+                                 by=8)
+    assert plan3.smem_bytes() == 3 * 10 * 10 * 4
+    assert plan3.smem_bytes(2) == (3 + 2) * 10 * 10 * 4
 
 
 # ---------------------------------------------------------------------------
@@ -358,4 +368,5 @@ def test_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(compat, "nvcc_path", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build_all()
-    assert _build._library_path("stencil2d_revolving").parent == tmp_path
+    for name in ("stencil2d_revolving", "stencil3d_stream"):
+        assert _build._library_path(name).parent == tmp_path
